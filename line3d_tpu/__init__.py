@@ -1,4 +1,4 @@
-"""line3d_tpu — TPU-native line-based multi-view stereo.
+"""line3d_tpu — line-based multi-view stereo on an accelerator.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 manhofer/Line3D (GCPR 2015): 2D line segment detection, epipolar pairwise

@@ -138,10 +138,9 @@ def _min_symmetrize(i, j, w, eps):
 
 
 def resolve_backend(config: L3DConfig) -> str:
-    """Resolve config.diffusion_backend: "auto" becomes "device" on a TPU
-    backend (where the jitted fori_loop path is ~instant) and "host" on
-    CPU (keeping the float64 reference path for tests/golden runs;
-    shared rule, utils.backend)."""
+    """Resolve config.diffusion_backend: "auto" becomes "device" on a GPU
+    and "host" on the CPU (keeping the float64 reference path for
+    tests/golden runs; shared rule, utils.backend)."""
     from ..utils.backend import resolve_auto_backend
     return resolve_auto_backend(config.diffusion_backend)
 

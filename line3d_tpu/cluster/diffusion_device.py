@@ -1,6 +1,6 @@
-"""Device-side replicator-dynamics diffusion (TPU formulation).
+"""Device-side replicator-dynamics diffusion.
 
-TPU-native equivalent of the reference RDD GPU kernels
+Device equivalent of the reference RDD GPU kernels
 (K_sparseMat_row_normalization cudawrapper.cu:717-762,
 K_sparseMat_diffusion_step cudawrapper.cu:765-829, host driver
 replicator_dynamics_diffusion cudawrapper.cu:1131-1191): the host builds a
@@ -26,7 +26,7 @@ Formulation notes:
 
 Sharding: all [E]-shaped arrays may be sharded along a 1-D mesh axis.  The
 value vector is both gather source and permutation target across shards,
-so XLA inserts one all-gather per iteration over ICI — the O(E) vector,
+so XLA inserts one all-gather per iteration across the mesh — the O(E) vector,
 not the O(E·K) matrix.  Values are float32 on device, matching the
 reference kernels (the host path in diffusion.py is float64).
 """

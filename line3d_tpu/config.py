@@ -72,11 +72,10 @@ class L3DConfig:
     diffusion_mode: str = "reference"
     # "host" runs diffusion in numpy/scipy (float64); "device" runs the
     # iterations (either mode: the reference lockstep walk or the true
-    # merge-walk sparse product) as one jitted fori_loop on TPU
+    # merge-walk sparse product) as one jitted fori_loop on the device
     # (float32, shardable along the edge axis — cluster/diffusion_device.py).
-    # "auto" (default) picks "device" when a TPU backend is present and
-    # "host" otherwise (CPU runs/tests keep the f64 reference path; the
-    # host path measured ~50 s/100 views vs ~instant on device, README).
+    # "auto" (default) picks "device" on a GPU and "host" otherwise (CPU
+    # runs/tests keep the f64 reference path; utils/backend.py).
     diffusion_backend: str = "auto"
 
     # --- line refinement (additive: line bundle adjustment, no reference
@@ -86,11 +85,12 @@ class L3DConfig:
     # "host" = float64 numpy Gauss-Newton (semantic reference);
     # "device" = jit-batched float32 with exact JVP Jacobians
     # (fit/refine.py, the 100k+-cluster scale path); "auto" picks "device"
-    # on a TPU backend, "host" otherwise (same rule as diffusion_backend)
+    # on a GPU, "host" otherwise (same rule as diffusion_backend)
     refine_backend: str = "auto"
 
     # --- joint camera + line bundle adjustment (additive: the BASELINE
-    # north star's "Schur-complement reduction over ICI"; fit/bundle.py).
+    # north star's Schur-complement reduction across the mesh;
+    # fit/bundle.py).
     # Refines camera poses AND cluster lines jointly (intrinsics fixed);
     # the refined poses land in Line3D.refined_poses and the reported
     # lines are snapped to the jointly refined geometry.  Implies the
@@ -113,7 +113,7 @@ class L3DConfig:
     # --- numerics ---
     eps: float = 1e-12                   # L3D_EPS / L3D_EPS_G
 
-    # --- TPU-specific shape knobs (no reference equivalent) ---
+    # --- device shape knobs (no reference equivalent) ---
     # Maximum number of raw matches kept per source segment during
     # verification.  The reference keeps an unbounded std::list
     # (cudawrapper.cu:926-944); fixed shapes need a cap.  Overflow is counted
@@ -121,8 +121,8 @@ class L3DConfig:
     max_matches_per_segment: int = 256
     # Per-(source segment, 128-target-block) raw-match quota during
     # per-neighbor compaction (compact_rows_blockq): per-neighbor capacity
-    # is (S/128)*quota.  Key-only block compaction is ~6x cheaper on TPU
-    # than tightly packing rows; overflow is counted and reported.
+    # is (S/128)*quota.  Key-only block compaction avoids a payload-heavy
+    # tight row packing; overflow is counted and reported.
     match_block_quota: int = 8
     # Reference-exactness guard for the two caps above.  The reference
     # keeps every raw match (unbounded std::list, cudawrapper.cu:923-1007);
@@ -147,15 +147,16 @@ class L3DConfig:
     # not rest on that argument).  Costs one extra short device program on
     # scenes whose density fits the default caps anyway.
     capacity_probe: bool = True
-    # Segment-count padding granularity (TPU lane width).
+    # Segment-count padding granularity (the block width of the per-block
+    # match compaction).
     pad_multiple: int = 128
     # View-count padding granularity for the batched/sharded engine.
     # Bucketing the padded view axis makes the matching and collinearity
     # programs byte-identical for any scene in the same bucket, so compiled
     # executables (local persistent cache, warmup_async pre-compiles,
     # service-side caches) are reusable across scenes.  Padded views are
-    # masked inactive (view_active) and cost only execution time
-    # (~0.1 s/view at production shape).
+    # masked inactive (view_active) and cost only the dead branch of the
+    # per-view lax.cond.
     view_pad_multiple: int = 8
     # Shape-stable device programs: snap the segment axis to one of three
     # buckets — the smallest of {cap/4, cap/2, cap} that holds the scene

@@ -1,6 +1,6 @@
-"""Pure, jittable geometry primitives (float32, TPU-friendly).
+"""Pure, jittable geometry primitives (float32).
 
-These are the TPU-native equivalents of the reference's CUDA device library
+These are the array equivalents of the reference's CUDA device library
 (reference: cudawrapper.cu:46-427).  All functions are shape-polymorphic and
 broadcast over leading batch dimensions, so the matching kernels can evaluate
 them over [S_src, S_tgt] pair grids in one fused XLA program.
@@ -136,10 +136,11 @@ def segment_overlap_2d(src_p1, src_p2, q1, q2) -> jnp.ndarray:
 def apply_mat3(M: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """[..., 3, 3] @ [..., 3] -> [..., 3] with broadcasting.
 
-    HIGHEST precision: geometry einsums must not ride the MXU's default
-    bf16 truncation — viewing rays feed 3D endpoints whose reprojection
-    error is compared against sigma_p (a few pixels), and bf16 rays shift
-    reprojections by whole pixels at image scale."""
+    HIGHEST precision: geometry einsums must not run at a reduced matmul
+    precision (TF32 on a GPU, bf16 elsewhere) — viewing rays feed 3D
+    endpoints whose reprojection error is compared against sigma_p (a few
+    pixels), and rounded rays shift reprojections by whole pixels at image
+    scale."""
     return jnp.einsum("...ij,...j->...i", M, p,
                       precision=jax.lax.Precision.HIGHEST)
 

@@ -1,8 +1,8 @@
-"""Vectorized line-segment detection (TPU-native LSD replacement).
+"""Vectorized line-segment detection (array-native LSD replacement).
 
 The reference uses a greedy, inherently sequential LSD (seeded region growing
 with a running region angle, lsd_opencv.cpp:537-969).  SURVEY.md §7 marks
-this as hard part #1: the TPU build re-formulates detection as a data-parallel
+this as hard part #1: this build re-formulates detection as a data-parallel
 pipeline with the same validation statistics:
 
   1. Gaussian blur + 0.8x downscale (flsd, lsd_opencv.cpp:546-558),
@@ -260,18 +260,20 @@ def _front_native(lib, image: np.ndarray, out_h: int, out_w: int,
 def _front(image, out_h: int, out_w: int):
     """Blur/scale + gradient field.
 
-    Native C++ when the library is available (detection is host-side;
-    the XLA CPU front costs ~90 ms/image and its thread pool contends
-    across the CLI's image workers).  XLA fallback in two separate jit
-    programs on purpose: fused, XLA CPU duplicates the gather-resize
-    chain into every gradient consumer (170 ms vs 66 ms for the split at
-    1920x1440; optimization_barrier does not stop it)."""
+    On a GPU the XLA formulation runs on the card (7.2 ms at 1920x1440
+    against 12.6 ms for the native C++ front, transfers included; H100,
+    PERF.md); on the host the native C++ front when the library is
+    available (the XLA CPU front measured 52 ms).  The XLA front is two
+    separate jit programs on purpose: fused, XLA CPU duplicates the
+    gather-resize chain into every gradient consumer."""
     prec = math.pi * ANG_TH / 180.0
     rho = QUANT / math.sin(prec)
 
     from ..native import load as native_load
+    from ..utils import backend
     lib = native_load.get_lib()
-    if lib is not None and hasattr(lib, "lsd_front"):
+    if not backend.on_gpu() and lib is not None and \
+            hasattr(lib, "lsd_front"):
         return _front_native(lib, np.asarray(image, np.float32),
                              out_h, out_w, rho)
 
@@ -857,21 +859,6 @@ def _cc_and_fit_native(lib, norm, angle, defined, tol, prec):
     return fit, labels.reshape(H, W)
 
 
-def _detect_device():
-    """Device for the detection programs.  The connected-components label
-    propagation is gather-heavy; gathers are ~5x faster on the host CPU
-    than on the TPU (and detection is per-image parallel across hosts while
-    the TPU runs matching).  Override with LINE3D_DETECT_DEVICE=default."""
-    import os
-    import jax
-    if os.environ.get("LINE3D_DETECT_DEVICE", "cpu") != "cpu":
-        return None
-    try:
-        return jax.local_devices(backend="cpu")[0]
-    except RuntimeError:
-        return None
-
-
 def detect(image_gray: np.ndarray) -> np.ndarray:
     """Run vectorized LSD on a float grayscale image.
 
@@ -883,11 +870,6 @@ def detect(image_gray: np.ndarray) -> np.ndarray:
     reduce_region_radius (lsd_opencv.cpp:884-969), which separates
     near-parallel crossing lines that single-linkage merges.
     """
-    import jax as _jax
-    dev = _detect_device()
-    if dev is not None:
-        with _jax.default_device(dev):
-            return _detect_impl(image_gray)
     return _detect_impl(image_gray)
 
 
@@ -902,8 +884,7 @@ def _detect_impl(image_gray: np.ndarray) -> np.ndarray:
         math.log10(11.0)
     min_reg_size = int(-log_nt / math.log10(p))
 
-    norm, angle, defined = _front(jnp.asarray(image_gray, jnp.float32),
-                                  out_h, out_w)
+    norm, angle, defined = _front(image_gray, out_h, out_w)
 
     from ..native import load as native_load
     lib = native_load.get_lib()

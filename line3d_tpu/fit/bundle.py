@@ -1,8 +1,8 @@
 """Joint camera + line bundle adjustment with Schur-complement reduction.
 
 The north-star capability beyond the reference (BASELINE.json: "final line
-bundle adjustment ... distributed via Schur-complement reduction over
-ICI"; the reference never touches camera poses — its closest analogue is
+bundle adjustment ... distributed via Schur-complement reduction", here
+across the device mesh; the reference never touches camera poses — its closest analogue is
 the per-cluster line fit of processClusteredSegments, line3D.cc:1306-1368).
 `fit/refine.py` refines 4-DoF lines with cameras frozen; this module
 refines the SAME residuals jointly over
@@ -19,11 +19,11 @@ normal system is arrow-shaped: the line-line block is block-diagonal
 ([C, 4, 4]), and eliminating it via the Schur complement leaves a reduced
 camera system S = H_θθ − Σ_c H_θl,c H_ll,c⁻¹ H_lθ,c of size [6V, 6V] —
 the ONLY cross-cluster object in the solve.  On a mesh the cluster axis is
-sharded and S/g arrive by `psum` over the shards (ICI), every device
+sharded and S/g arrive by `psum` over the shards, every device
 solves the same tiny reduced system, and back-substitution for the line
 steps is again embarrassingly parallel per shard.  That is exactly the
-promised "Schur-complement reduction over ICI": per-shard outer products
-in, one [6V, 6V] psum out.
+promised Schur-complement reduction across the mesh: per-shard outer
+products in, one [6V, 6V] psum out.
 
 Gauge handling: the first camera's 6 DoF are pinned (update masked to
 zero) and Levenberg damping on both blocks absorbs the remaining global
@@ -32,8 +32,8 @@ reprojection rms improves (same accept-gate style as refine.py).
 
 Float32 on device with exact forward-mode Jacobians (jax.jvp) and HIGHEST
 precision on the projection/normal-equation einsums — the same numeric
-rules CLAUDE.md records for the refine path (bf16 MXU truncation is whole
-pixels of reprojection error at K ≈ 1500).
+rules as the refine path (a TF32 or bf16 product is whole pixels of
+reprojection error at K ≈ 1500).
 """
 from __future__ import annotations
 
@@ -57,8 +57,8 @@ def _rodrigues_jnp(w):
         jnp.stack([wz, zero, -wx], axis=-1),
         jnp.stack([-wy, wx, zero], axis=-1)], axis=-2)     # [V, 3, 3]
     I = jnp.eye(3, dtype=w.dtype)[None]
-    # geometry matmul: HIGHEST precision (the default MXU path truncates
-    # f32 to bf16 — whole-pixel reprojection noise per iteration)
+    # geometry matmul: HIGHEST precision (a TF32/bf16 product is
+    # whole-pixel reprojection noise per iteration)
     Wx2 = jnp.einsum("vij,vjk->vik", Wx, Wx,
                      precision=jax.lax.Precision.HIGHEST)
     return I + a[:, None, None] * Wx + b[:, None, None] * Wx2
@@ -210,7 +210,7 @@ def _bundle_jit(P0, d, K, R0, t0, vidx, p1, p2, mask, iterations: int,
         # a lax.scan and contracted away immediately — peak extra memory
         # is [CB, 2M, 6V] while every accumulator is [6V, 6V] or smaller.
         # G[c,i,:] = B[c,i,:] at view block v(i), built as a one-hot outer
-        # product (a small MXU contraction beats a scatter on TPU).
+        # product (a small dense contraction instead of a scatter).
         CB = math.gcd(C, 256)
         nblk = C // CB
 
@@ -243,7 +243,7 @@ def _bundle_jit(P0, d, K, R0, t0, vidx, p1, p2, mask, iterations: int,
         S_part = Htt - S_fill
         g_part = g_t - g_corr
         if axis:
-            # the Schur-complement reduction over ICI: every shard's
+            # the Schur-complement reduction across the mesh: every shard's
             # cluster contributions sum into the one global [6V, 6V]
             # camera system; the solve below is replicated
             S_part = jax.lax.psum(S_part, axis)
@@ -358,7 +358,7 @@ def bundle_adjust(P0, d, K, R, t, vidx, p1, p2, mask, iterations: int = 5,
       vidx: [C, M] int member view ids (-1 padding); p1/p2: [C, M, 2]
         member 2D endpoints; mask: [C, M] member validity.
       mesh: optional 1-D device mesh — shards the cluster axis; the
-        reduced [6V, 6V] camera system is psum'd over it (ICI).
+        reduced [6V, 6V] camera system is psum'd over it.
 
     Returns (P0', d', R', t', rms_before, rms_after) — rms are scalars
     over all member residuals.

@@ -19,7 +19,8 @@ tested in tests/test_refine.py):
     (jax.jvp; finite differences are unusable in f32 — (r(x+eps)-r(x))/eps
     at pixel scale loses ~half the mantissa).  The per-cluster Gauss-Newton
     is embarrassingly parallel, so at 100k+ clusters the [C, M] batch maps
-    onto the TPU VPU and the 4x4 normal solves are trivially batched; the
+    onto the device's vector units and the 4x4 normal solves are trivially
+    batched; the
     host stage was the serial bottleneck at the 1000-view scale
     (README host_stage_scaling).
 """
@@ -135,11 +136,12 @@ def refine_lines(P0, d, Pm, p1, p2, mask, iterations: int = 5,
 def _residuals_jnp(P0, d, Pm, p1, p2, mask):
     """jax twin of _residuals (same math, f32 device arrays).
 
-    HIGHEST precision on the projection einsums: the default MXU path
-    truncates f32 to bf16, and with K-scale entries ~1500 that is whole
-    PIXELS of reprojection error — the Gauss-Newton steps would be
-    computed from noise (the CPU-mesh equivalence test cannot catch
-    this; only a real TPU run would)."""
+    HIGHEST precision on the projection einsums: a lower-precision
+    product (TF32 on a GPU, bf16 elsewhere) keeps ~3 decimal digits, and
+    with K-scale entries ~1500 that is whole PIXELS of reprojection error —
+    the Gauss-Newton steps would be computed from noise (the CPU-mesh
+    equivalence test cannot catch this; chip_smoke.py's refinement check
+    on the card would)."""
     import jax
     import jax.numpy as jnp
     ones = jnp.ones((P0.shape[0], 1), P0.dtype)
@@ -236,8 +238,8 @@ def _refine_lines_jit(P0, d, Pm, p1, p2, mask, iterations: int,
 
 
 def resolve_backend(config) -> str:
-    """Resolve config.refine_backend: "auto" becomes "device" on a TPU
-    backend and "host" otherwise (shared rule, utils.backend)."""
+    """Resolve config.refine_backend: "auto" becomes "device" on a GPU
+    and "host" otherwise (shared rule, utils.backend)."""
     from ..utils.backend import resolve_auto_backend
     return resolve_auto_backend(getattr(config, "refine_backend", "auto"))
 

@@ -1,6 +1,6 @@
 """Match verification: multi-view support scoring of raw matches.
 
-TPU-native equivalent of K_verify_matches (reference: cudawrapper.cu:614-714)
+Device equivalent of K_verify_matches (reference: cudawrapper.cu:614-714)
 plus the host-side confidence filter / median-depth pass
 (cudawrapper.cu:1021-1110).
 
@@ -18,13 +18,13 @@ triangulated depths (d1, d2):
   * confidence(m) = sum over cameras c2 != c of max_{m2 in c2} support(m, m2).
 
 The reference runs one CUDA thread per match, serially looping over the
-segment's other matches (cudawrapper.cu:656-706).  Here the [M x M] support
-matrix per source segment is evaluated densely (the 3D-angle term is a single
-MXU matmul) over row-chunks of the segment axis.
+segment's other matches (cudawrapper.cu:656-706).  score_matches below is
+the plain XLA twin: the [M x M] support matrix per source segment is
+evaluated densely over row-chunks of the segment axis.  It is the CPU path
+and the reference for the GPU kernel (scoring_triton), which keeps the
+reference's O(sum R^2) cost and no plane in device memory.
 """
 from __future__ import annotations
-
-
 
 import jax
 import jax.numpy as jnp
@@ -33,16 +33,28 @@ from ..core import geometry as g
 
 EPS = g.EPS
 
+# the twin materializes about a dozen [row_chunk, M, M] f32 planes per
+# chunk; capping one plane at 2^25 elements (128 MiB) keeps a chunk within
+# a few GiB at the exact capacities (M = 1024, 2048)
+_TWIN_PLANE_ELEMS = 1 << 25
+
+
+def twin_row_chunk(row_chunk: int, M: int) -> int:
+    """Row chunk of the XLA twin: the caller's, halved until one
+    [rows, M, M] plane fits _TWIN_PLANE_ELEMS."""
+    rows = row_chunk
+    while rows > 1 and rows * M * M > _TWIN_PLANE_ELEMS:
+        rows //= 2
+    return rows
+
 
 def _gather_m2(T, onehot):
     """out[s, m, m2] = T[s, m, cam[s, m2]] for T [Sc, M, N].
 
-    Expressed as a one-hot contraction over the tiny camera axis (N ~ 10):
-    an MXU matmul instead of an XLA gather — per-element gathers along a
-    non-lane axis are catastrophically slow on TPU (~1000x here).
+    Expressed as a one-hot contraction over the tiny camera axis (N ~ 10).
     onehot: [Sc, M2, N] float32 with onehot[s, k, cam[s, k]] = 1.
-    HIGHEST precision: the default MXU path truncates f32 operands to bf16,
-    which would round the gathered values.
+    HIGHEST precision: a lower-precision product (bf16, or TF32 on a GPU)
+    would round the gathered values.
     """
     return jnp.einsum("smn,skn->smk", T, onehot,
                       preferred_element_type=jnp.float32,
@@ -60,6 +72,7 @@ def score_matches(segs_src, mask_src, RtKinv_src, C_src,
     Returns confidence [S, M] float32 (0 for invalid slots).
     """
     S, M = cam.shape
+    row_chunk = twin_row_chunk(row_chunk, M)
     N = P_nb.shape[0]
     St = segs_nb.shape[1]
 
@@ -68,8 +81,7 @@ def score_matches(segs_src, mask_src, RtKinv_src, C_src,
     ray2 = g.ray_dir(RtKinv_src, p2)
 
     # target segment coords per match: [S, M, 4] (shared with the depth
-    # recompute when the caller provides it — the gather is ~19 ms/view at
-    # exact capacities, pairwise.gather_target_coords)
+    # recompute when the caller provides it, pairwise.gather_target_coords)
     if tcoords is None:
         from .pairwise import gather_target_coords
         tcoords = gather_target_coords(segs_nb, cam, tgt)
@@ -100,7 +112,7 @@ def score_matches(segs_src, mask_src, RtKinv_src, C_src,
         # project into all neighbors: [Sc, M, N, 3]
         def proj_all(P):
             Ph = jnp.concatenate([P, jnp.ones_like(P[..., :1])], axis=-1)
-            # HIGHEST: the default MXU path truncates the 3D points to bf16,
+            # HIGHEST: a bf16/TF32 product would round the 3D points,
             # which shifts reprojections by whole pixels at image scale
             q = jnp.einsum("smk,nik->smni", Ph, P_nb,
                            precision=jax.lax.Precision.HIGHEST)
@@ -120,7 +132,7 @@ def score_matches(segs_src, mask_src, RtKinv_src, C_src,
         pl_den = jnp.maximum(jnp.sqrt(plx ** 2 + ply ** 2), EPS)
 
         # "gathers" to [Sc, M, M]: value index m, camera index cam[m2] —
-        # one-hot MXU contractions over the camera axis
+        # one-hot contractions over the camera axis
         onehot = (camc[:, :, None] ==
                   jnp.arange(N, dtype=jnp.int32)[None, None, :]
                   ).astype(jnp.float32)              # [Sc, M2, N]
@@ -157,7 +169,7 @@ def score_matches(segs_src, mask_src, RtKinv_src, C_src,
         dist = jnp.maximum(jnp.maximum(da1, da2), jnp.maximum(db1, db2))
         conf_pos = jnp.exp(-dist * dist / sig_p2)
 
-        # 3D angle via dot of normalized directions (MXU matmul, exact f32)
+        # 3D angle via dot of normalized directions (exact f32 product)
         dots = jnp.einsum("smk,snk->smn", dirn, dirn,
                           preferred_element_type=jnp.float32,
                           precision=jax.lax.Precision.HIGHEST)
@@ -210,12 +222,12 @@ def score_matches_best(segs_src, mask_src, RtKinv_src, C_src,
                        cam, tgt, depths, valid, P_nb, segs_nb,
                        sigma_p, sigma_a, spatial_k,
                        support_threshold=0.5, row_chunk=128, tcoords=None):
-    """Backend dispatch: fused Pallas kernel on TPU (scoring_pallas, ~2x
-    the XLA formulation at production shape), XLA elsewhere (CPU tests)."""
-    from .pairwise import use_pallas
-    if use_pallas() and cam.shape[1] % 128 == 0:
-        from .scoring_pallas import score_matches_pallas
-        return score_matches_pallas(
+    """Kernel choice (utils.backend): the fused Pallas-Triton kernel on the
+    GPU (scoring_triton, any M), the XLA twin elsewhere (CPU tests)."""
+    from ..utils import backend
+    if backend.use_kernels():
+        from .scoring_triton import score_matches_triton
+        return score_matches_triton(
             segs_src, mask_src, RtKinv_src, C_src, cam, tgt, depths, valid,
             P_nb, segs_nb, sigma_p, sigma_a, spatial_k,
             support_threshold=support_threshold, tcoords=tcoords)

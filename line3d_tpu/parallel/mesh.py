@@ -1,9 +1,10 @@
 """Device-mesh helpers for multi-chip / multi-host execution.
 
-The reference is single-process single-GPU (SURVEY.md §2); the TPU build's
+The reference is single-process single-GPU (SURVEY.md §2); this build's
 scaling axis is #views x #segments: views are sharded over a 1-D "views"
-mesh axis (data parallel over ICI/DCN), each device matching its view shard
-against replicated neighbor data.  Collectives are inserted by XLA from the
+mesh axis (data parallel; every card of a host reaches every other at the
+same rate, so the mesh follows the algorithm alone), each device matching
+its view shard against replicated neighbor data.  Collectives are inserted by XLA from the
 shardings; nothing here talks to hardware directly.
 """
 from __future__ import annotations
@@ -23,8 +24,8 @@ def view_chunk_size(mesh: "Mesh", multiple: int = 1,
     many views so every scene shares the same chunk-shaped executables;
     warmup (pipeline.warmup_async) and dispatch (match/engine.py,
     pipeline.compute_3d_model) MUST use this one formula or a warmed
-    executable never matches the runtime one and every scene pays the
-    40-160 s cold remote compile.  Multi-process runs do not chunk
+    executable never matches the runtime one and every scene pays a
+    cold compile.  Multi-process runs do not chunk
     (per-chunk globalize/replicate round trips would serialize on DCN) —
     callers use Vp there.
     """

@@ -1,4 +1,4 @@
-"""Multi-host orchestration for pod-slice runs.
+"""Multi-host orchestration for runs across several hosts.
 
 The reference is strictly single-process (SURVEY.md §2); scaling line3d_tpu
 beyond one host follows the standard JAX SPMD recipe:
@@ -24,8 +24,8 @@ beyond one host follows the standard JAX SPMD recipe:
 Host-side stages after matching are O(verified matches); measured at
 1000-view production density they total ~25 s on a 4-core host (fused
 native affinity finalize + packed-pair enumeration + native F-H +
-batched fit) against a ~55 s device stage, so host clustering is NOT the
-scaling bound through the 1000-view north star.  With N hosts the weight
+batched fit); the device stage at that scale is not yet measured on the
+GPU (ROADMAP W1).  With N hosts the weight
 sweep divides by N; the serial-exact Amdahl floor is the order-dependent
 enumeration itself (~5 s / 1000 views, linear), replicated because the
 reference's `used`-set traversal is sequential by construction

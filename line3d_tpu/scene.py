@@ -1,7 +1,7 @@
 """Scene container: fixed-shape, padded segment storage for all views.
 
 The reference keeps per-view std::maps and per-view DataArrays
-(line3D.h:104-154, segments.h:48-132); the TPU build replaces those with one
+(line3D.h:104-154, segments.h:48-132); this build replaces those with one
 padded tensor per quantity plus validity masks so every stage is a fixed-shape
 batched array program.
 """

@@ -7,7 +7,11 @@ segment counts for benchmarking.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import jax
+import jax.numpy as jnp
 
 from ..core.cameras import CameraSet
 from ..scene import Scene
@@ -239,3 +243,70 @@ def make_demo_scene(num_views: int = 10, width: int = 1920, height: int = 1440,
     scene = Scene.from_ragged(seg_lists, cams, wp_lists=wp_lists,
                               config=config)
     return scene, cams
+
+
+def view_match_inputs(scene: Scene, cams: CameraSet, config: L3DConfig,
+                      num_neighbors: int = 10, view: int | None = None):
+    """Device inputs of one view's matching step, as the pipeline builds
+    them: conditions `cams` in place, picks the visual neighbors, and pads
+    the neighbor axis to `num_neighbors`.  `view=None` takes the view with
+    the largest exact per-segment match count (the view that sets the
+    exact launch capacity).
+
+    Returns (view, src (segs, mask, RtKinv, C), nb (segs, mask, F, RtKinv,
+    C, P, nb_mask), spatial_k, need) — need is that view's exact
+    per-segment capacity."""
+    from ..core.conditioning import compute_conditioning
+    from ..match import engine
+    from ..scene import view_similarities_from_worldpoints, \
+        find_visual_neighbors
+
+    tr = compute_conditioning(cams.C)
+    cams.transform(tr.Qinv, tr.scale)
+    sim, _ = view_similarities_from_worldpoints(scene.wp_lists,
+                                                scene.num_views)
+    neighbors = find_visual_neighbors(sim, cams.baselines(),
+                                      config.min_baseline, num_neighbors)
+    ctx = engine._ViewContext(scene, cams, config, num_neighbors)
+
+    def inputs(v):
+        nb = np.asarray(neighbors[v], np.int64)
+        (segs_nb, mask_nb, F_nb, R_nb, C_nb, P_nb), nb_mask = \
+            ctx.neighbor_arrays(v, nb)
+        src = (ctx.segs_f32[v], ctx.mask[v], ctx.RtKinv32[v], ctx.C32[v])
+        nbd = (segs_nb, mask_nb, F_nb, R_nb, C_nb, P_nb, nb_mask)
+        counts = np.asarray(engine._count_view_matches(
+            *src, *nbd[:5], nb_mask))
+        need = int(counts.sum(axis=0).max())
+        return (tuple(jnp.asarray(x) for x in src),
+                tuple(jnp.asarray(x) for x in nbd), need)
+
+    if view is None:
+        needs = [inputs(v)[2] if len(neighbors[v]) else -1
+                 for v in range(scene.num_views)]
+        view = int(np.argmax(needs))
+    src, nbd, need = inputs(view)
+    return view, src, nbd, float(ctx.spatial_ks[view]), need
+
+
+@functools.partial(jax.jit, static_argnames=("quota", "m_total"))
+def match_table(src, nbd, quota: int, m_total: int):
+    """One view's merged match table at the given capacities, as the
+    matching step builds it before scoring: (cam, tgt, depths, valid,
+    tcoords, overflow)."""
+    from ..match import pairwise
+    segs_src, mask_src, RtKinv_src, C_src = src
+    segs_nb, mask_nb, F_nb, R_nb, C_nb, _P_nb, nb_mask = nbd
+    res = pairwise.match_view_against_neighbors(
+        segs_src, mask_src, RtKinv_src, C_src, segs_nb, mask_nb, F_nb,
+        R_nb, C_nb, nb_mask, quota, min_capacity=m_total)
+    cam, tgt, valid = pairwise.merge_neighbor_tables(
+        res, m_total, segs_nb.shape[1])
+    tcoords = pairwise.gather_target_coords(segs_nb, cam, tgt)
+    depths = pairwise.depths_for_matches(
+        segs_src, segs_nb, cam, tgt, valid, F_nb, RtKinv_src, R_nb, C_src,
+        C_nb, tcoords=tcoords)
+    n_kept = jnp.sum(res["valid"], axis=(0, 2))
+    overflow = jnp.sum(res["overflow"]) + \
+        jnp.sum(jnp.maximum(n_kept - m_total, 0))
+    return cam, tgt, depths, valid, tcoords, overflow

@@ -1,6 +1,6 @@
 """Debug visualization utilities.
 
-TPU-free host helpers mirroring the reference's debug facilities:
+Device-free host helpers mirroring the reference's debug facilities:
 
   * ``draw_lines`` — rasterize one view's 2D segments onto a black canvas
     with an optional highlighted subset (L3DView::drawLines,

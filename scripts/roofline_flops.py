@@ -1,19 +1,12 @@
-"""Derive the FLOP counts bench.py uses for the kernel roofline rows.
+"""Derive the useful-math FLOP counts bench.py uses for its stage rates.
 
-The production Pallas kernels (match/pairwise_pallas.py pair-valid kernel,
-match/scoring_pallas.py fused scoring kernel) are opaque custom calls to
-XLA's cost model, so the *useful-math* FLOP counts are taken from their
-equivalence-tested XLA twins (match/pairwise.match_pair_dense,
-match/scoring.score_matches_best — identical math, tests/test_pallas.py)
-via compiled.cost_analysis() on the CPU backend.  bench.py hard-codes the
+The Pallas-Triton scoring kernel is an opaque custom call to XLA's cost
+model, so the *useful-math* FLOP counts are taken from the XLA twins
+(match/pairwise.match_pair_dense, match/scoring.score_matches — the
+kernel's equivalence is tested in tests/test_pallas.py) via
+compiled.cost_analysis() on the CPU backend.  bench.py hard-codes the
 per-element constants printed here (they are shape-independent ratios);
-re-run this script after changing either kernel's math.
-
-The roofline percentage in bench.py is then
-    (useful flops / measured kernel seconds) / measured VPU FMA peak
-— both numerator terms auditable (this script + the fori-loop timing
-protocol), the denominator measured on the same chip with a pure-FMA
-Pallas-era protocol (bench._measure_vpu_peak).
+re-run this script after changing either stage's math.
 """
 import jax
 

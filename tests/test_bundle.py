@@ -2,7 +2,7 @@
 Gauss-Newton with Schur elimination of the line blocks.
 
 The north-star capability (BASELINE.json: "final line bundle adjustment …
-distributed via Schur-complement reduction over ICI").  Pinned here:
+distributed via Schur-complement reduction", across the device mesh).  Pinned here:
 
   * on a synthetic scene with PERTURBED camera poses, joint refinement
     reaches a reprojection rms that line-only refinement cannot (the lines

@@ -1,4 +1,4 @@
-"""Match-capacity correctness: the TPU shape caps must not change results.
+"""Match-capacity correctness: the device shape caps must not change results.
 
 The reference keeps every raw match in an unbounded list
 (cudawrapper.cu:923-1007); line3d_tpu caps the per-segment match table

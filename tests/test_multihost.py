@@ -1,7 +1,7 @@
 """Multi-host orchestration: 2 real processes, gloo collectives, global mesh.
 
-Validates the pod-slice recipe in parallel/multihost.py end-to-end without
-TPU hardware: two OS processes each own 4 CPU devices and a contiguous view
+Validates the multi-host recipe in parallel/multihost.py end-to-end without
+accelerator hardware: two OS processes each own 4 CPU devices and a contiguous view
 shard, all-gather segments, and run the sharded matching step over the
 8-device global mesh with cross-process collectives.  The parent compares
 both hosts' replicated outputs against the in-process single-"host" run.

@@ -1,201 +1,120 @@
-"""Pallas kernel correctness (interpreter mode on the CPU test backend)."""
+"""Pallas-Triton scoring kernel: correctness in interpret mode on the CPU,
+its lowering for CUDA, the kernel choice, and the XLA twin it is checked
+against.  `gpu`-marked tests compile the kernel for the card and skip
+where there is none (chip_smoke.py runs the same checks at full width)."""
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 
-from line3d_tpu.match import pairwise, pairwise_pallas
-from synthetic import make_scene
+from line3d_tpu.match import scoring, scoring_triton
 
-
-def test_pallas_kernel_matches_soa_interpret():
-    syn = make_scene(num_views=6)
-    cams, sc = syn.cameras, syn.scene
-    v, n = 1, 3
-    f32 = lambda x: jnp.asarray(np.asarray(x, np.float32))
-    args = (f32(sc.segments[v]), f32(sc.segments[n]),
-            jnp.asarray(sc.seg_mask[v]), jnp.asarray(sc.seg_mask[n]),
-            jnp.asarray(cams.fundamental(v, n).astype(np.float32)),
-            f32(cams.RtKinv[v]), f32(cams.RtKinv[n]),
-            f32(cams.C[v]), f32(cams.C[n]))
-    d_x, v_x = pairwise.match_pair_dense(*args)
-    d_p, v_p = pairwise_pallas.match_pair_dense_pallas(
-        *args, block_s=64, block_t=128, interpret=True)
-    v_x = np.asarray(v_x)
-    v_p = np.asarray(v_p)
-    # gates may differ only on borderline float rounding (the pallas kernel
-    # uses a squared-distance overlap gate)
-    assert (v_x != v_p).mean() < 1e-3
-    both = v_x & v_p
-    assert both.sum() > 20
-    for k in range(4):
-        a = np.asarray(d_x[k])[both]
-        b = np.asarray(d_p[k])[both]
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+# the kernel reassociates the projection / acos arithmetic (scoring_triton
+# docstrings); per-value agreement with the twin within this bound
+RTOL, ATOL = 2e-3, 2e-4
 
 
-def test_pallas_valid_kernel_matches_dense_interpret():
-    syn = make_scene(num_views=6)
-    cams, sc = syn.cameras, syn.scene
-    v, n = 0, 2
-    f32 = lambda x: jnp.asarray(np.asarray(x, np.float32))
-    args = (f32(sc.segments[v]), f32(sc.segments[n]),
-            jnp.asarray(sc.seg_mask[v]), jnp.asarray(sc.seg_mask[n]),
-            jnp.asarray(cams.fundamental(v, n).astype(np.float32)),
-            f32(cams.RtKinv[v]), f32(cams.RtKinv[n]),
-            f32(cams.C[v]), f32(cams.C[n]))
-    _, v_full = pairwise_pallas.match_pair_dense_pallas(
-        *args, block_s=64, block_t=128, interpret=True)
-    v_only = pairwise_pallas.match_pair_valid_pallas(
-        *args, block_s=64, block_t=128, interpret=True)
-    np.testing.assert_array_equal(np.asarray(v_full), np.asarray(v_only))
+def _fixture(S, M, N=4, St=128, seed=5, occ=0.4, need=None, dead_row=None,
+             packed=False):
+    rng = np.random.default_rng(seed)
+    f32 = lambda x: jnp.asarray(np.asarray(x, np.float32))  # noqa: E731
+    cam = rng.integers(-1, N, (S, M)).astype(np.int32)
+    valid = (rng.uniform(size=(S, M)) < occ) & (cam >= 0)
+    if need is not None:
+        valid[:, need:] = False
+    if dead_row is not None:
+        valid[dead_row] = False
+    if packed:
+        # the merge's layout: valid slots first, camera-major
+        for s in range(S):
+            k = valid[s].sum()
+            cam[s] = -1
+            cam[s, :k] = np.sort(rng.integers(0, N, k))
+            valid[s] = False
+            valid[s, :k] = True
+    return (f32(rng.uniform(0, 300, (S, 4))), jnp.ones(S, bool),
+            f32(np.eye(3)), f32(rng.normal(size=3)),
+            jnp.asarray(cam), jnp.asarray(rng.integers(0, St, (S, M))
+                                          .astype(np.int32)),
+            f32(rng.uniform(0.5, 3.0, (S, M, 4))), jnp.asarray(valid),
+            f32(rng.normal(size=(N, 3, 4))),
+            f32(rng.uniform(0, 300, (N, St, 4))),
+            # loose sigmas so support values actually flow
+            jnp.float32(200.0), jnp.float32(90.0), jnp.float32(3.0))
 
 
-def test_pallas_collinearity_keep_superset_interpret():
-    """The pallas keep-plane is a (tight) superset of the XLA dense plane;
-    regated through _pair_aff the extra candidates vanish."""
-    from line3d_tpu.match import collinearity as col
-    from line3d_tpu.match.collinearity_pallas import collinearity_keep_pallas
-    rng = np.random.default_rng(11)
-    S = 128
-    segs = np.zeros((S, 4), np.float32)
-    mask = np.zeros(S, bool)
-    k = 0
-    for fam in range(10):
-        x0, y0 = rng.uniform(0, 200, 2)
-        th = rng.uniform(0, np.pi)
-        c, s_ = np.cos(th), np.sin(th)
-        t = 0.0
-        for piece in range(4):
-            L = rng.uniform(15, 40)
-            segs[k] = [x0 + t*c + rng.normal(0, 0.3),
-                       y0 + t*s_ + rng.normal(0, 0.3),
-                       x0 + (t+L)*c, y0 + (t+L)*s_]
-            mask[k] = True
-            k += 1
-            t += L + rng.uniform(3, 10)
-    for _ in range(40):
-        segs[k] = rng.uniform(0, 300, 4)
-        mask[k] = True
-        k += 1
-    sig2 = np.float32(4.0)
-    dense = np.asarray(col.collinearity_matrix(
-        jnp.asarray(segs), jnp.asarray(mask), sig2)) > 0.0
-    keep = np.asarray(collinearity_keep_pallas(
-        jnp.asarray(segs), jnp.asarray(mask), jnp.float32(sig2),
-        block_s=64, block_t=64, interpret=True))
-    assert dense.sum() > 20
-    # superset: everything the XLA plane keeps survives the pallas gate
-    assert (dense & ~keep).sum() == 0
-    # tight: margin extras are at most borderline-rounding cases
-    assert (keep & ~dense).sum() <= max(2, int(0.001 * dense.sum()))
+def _check(args, **kw):
+    ref = np.asarray(scoring.score_matches(*args, row_chunk=8))
+    got = np.asarray(scoring_triton.score_matches_triton(
+        *args, interpret=True, **kw))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
+    return ref, got
 
 
-def test_pallas_scoring_matches_xla_interpret():
-    """scoring_pallas (interpret mode) reproduces scoring.score_matches."""
-    from line3d_tpu.match import scoring, scoring_pallas
-    S, M, N, St = 64, 128, 4, 128
-    rng = np.random.default_rng(5)
-    f32 = lambda x: jnp.asarray(np.asarray(x, np.float32))
-    segs_src = f32(rng.uniform(0, 300, (S, 4)))
-    mask_src = jnp.ones(S, bool)
-    RtKinv = f32(np.eye(3))
-    C = f32(rng.normal(size=3))
-    cam = jnp.asarray(rng.integers(-1, N, (S, M)).astype(np.int32))
-    tgt = jnp.asarray(rng.integers(0, St, (S, M)).astype(np.int32))
-    depths = f32(rng.uniform(0.5, 3.0, (S, M, 4)))
-    valid = jnp.asarray((rng.uniform(size=(S, M)) < 0.4)
-                        & (np.asarray(cam) >= 0))
-    P_nb = f32(rng.normal(size=(N, 3, 4)))
-    segs_nb = f32(rng.uniform(0, 300, (N, St, 4)))
-    # loose sigmas so support values actually flow
-    sp, sa, sk = jnp.float32(200.0), jnp.float32(90.0), jnp.float32(3.0)
-    ref = scoring.score_matches(segs_src, mask_src, RtKinv, C, cam, tgt,
-                                depths, valid, P_nb, segs_nb, sp, sa, sk,
-                                row_chunk=32)
-    got = scoring_pallas.score_matches_pallas(
-        segs_src, mask_src, RtKinv, C, cam, tgt, depths, valid, P_nb,
-        segs_nb, sp, sa, sk, interpret=True)
-    ref, got = np.asarray(ref), np.asarray(got)
+@pytest.mark.parametrize("S,M", [(16, 128), (16, 256), (8, 512), (4, 1024),
+                                 (8, 200)])
+def test_pallas_scoring_matches_xla_interpret(S, M):
+    """score_matches_triton (interpret mode) reproduces score_matches at
+    every M the engine produces, including one that is no multiple of the
+    tiles (padded with invalid slots)."""
+    ref, _ = _check(_fixture(S, M))
     assert (ref > 0).sum() > 50
-    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-4)
 
 
-def test_pallas_scoring_tiled_matches_xla_interpret():
-    """The adaptively tiled scoring kernel (M > 256, the uncapped-exact
-    capacities that exceed VMEM untiled) reproduces scoring.score_matches.
-    M=512 dispatches 512-lane x 256-sublane tiles (scoring_pallas.
-    _tiles_for, swept on hardware — 512-lane tiles halve the grid and won
-    every measured occupancy with the dynamic-inner-loop kernel); tiles
-    are always >= 128 (the Mosaic lane-dim block constraint) since M must
-    be a multiple of 128."""
-    from line3d_tpu.match import scoring, scoring_pallas
-    assert scoring_pallas._tiles_for(512) == (512, 256)
-    assert scoring_pallas._tiles_for(1024) == (512, 256)
-    assert scoring_pallas._tiles_for(2048) == (512, 256)
-    assert scoring_pallas._tiles_for(640) == (128, 128)
-    assert scoring_pallas._tiles_for(256) == (256, 256)
-
-    S, M, N, St = 32, 512, 4, 600
-    rng = np.random.default_rng(9)
-    f32 = lambda x: jnp.asarray(np.asarray(x, np.float32))
-    segs_src = f32(rng.uniform(0, 300, (S, 4)))
-    mask_src = jnp.ones(S, bool)
-    RtKinv = f32(np.eye(3))
-    C = f32(rng.normal(size=3))
-    cam = jnp.asarray(rng.integers(-1, N, (S, M)).astype(np.int32))
-    tgt = jnp.asarray(rng.integers(0, St, (S, M)).astype(np.int32))
-    depths = f32(rng.uniform(0.5, 3.0, (S, M, 4)))
-    valid = jnp.asarray((rng.uniform(size=(S, M)) < 0.4)
-                        & (np.asarray(cam) >= 0))
-    P_nb = f32(rng.normal(size=(N, 3, 4)))
-    segs_nb = f32(rng.uniform(0, 300, (N, St, 4)))
-    sp, sa, sk = jnp.float32(200.0), jnp.float32(90.0), jnp.float32(3.0)
-    ref = scoring.score_matches(segs_src, mask_src, RtKinv, C, cam, tgt,
-                                depths, valid, P_nb, segs_nb, sp, sa, sk,
-                                row_chunk=32)
-    got = scoring_pallas.score_matches_pallas(
-        segs_src, mask_src, RtKinv, C, cam, tgt, depths, valid, P_nb,
-        segs_nb, sp, sa, sk, interpret=True)
-    ref, got = np.asarray(ref), np.asarray(got)
-    assert (ref > 0).sum() > 50
-    np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-4)
+@pytest.mark.parametrize("case", ["dead_row", "need_below_m",
+                                  "packed_rows", "tiles_32x32"])
+def test_pallas_scoring_tiled_matches_xla_interpret(case):
+    """Edge cases of the tiled loop: an all-invalid row (need 0), rows
+    whose live bound need < M (the loop stops early), the merge's packed
+    camera-major rows (the camera-range predicate skips cameras), and a
+    non-default tile shape."""
+    S, M = 8, 256
+    if case == "dead_row":
+        args = _fixture(S, M, dead_row=3)
+        ref, got = _check(args)
+        assert not got[3].any()
+    elif case == "need_below_m":
+        ref, got = _check(_fixture(S, M, need=70))
+        assert not got[:, 70:].any()
+    elif case == "packed_rows":
+        ref, got = _check(_fixture(S, M, packed=True, occ=0.5))
+    else:
+        ref, got = _check(_fixture(S, M), tiles=(32, 32, 4, 1))
+    assert (ref > 0).sum() > 10
 
 
-def test_pallas_block_pick_odd_multiple_of_128():
-    """Padded segment axes that are NOT multiples of the 256-row default
-    block (e.g. S=384 under pad_multiple=128) must shrink the block via
-    gcd instead of crashing — this was a reproducible TPU-path crash for
-    any default-config scene with S in {384, 640, 896, ...}."""
-    from line3d_tpu.match.pairwise_pallas import _pick_block
-    assert _pick_block(256, 384) == 128
-    assert _pick_block(256, 640) == 128
-    assert _pick_block(256, 768) == 256
-    assert _pick_block(256, 48) == 16
+def test_scoring_kernel_lowers_for_cuda():
+    """The Triton route accepts the kernel: cross-lowering for the CUDA
+    platform runs the whole Pallas -> Triton IR translation on the CPU."""
+    args = _fixture(64, 256, N=10)
+    lowered = jax.jit(scoring_triton.score_matches_triton).trace(
+        *args).lower(lowering_platforms=("cuda",))
+    assert "triton" in lowered.as_text()
 
-    syn = make_scene(num_views=6)
-    cams, sc = syn.cameras, syn.scene
-    v, n = 1, 3
-    S = 384
-    segs = np.zeros((2, S, 4), np.float32)
-    mask = np.zeros((2, S), bool)
-    ns = min(S, sc.segments.shape[1])
-    segs[0, :ns] = sc.segments[v][:ns]
-    segs[1, :ns] = sc.segments[n][:ns]
-    mask[0, :ns] = sc.seg_mask[v][:ns]
-    mask[1, :ns] = sc.seg_mask[n][:ns]
-    f32 = lambda x: jnp.asarray(np.asarray(x, np.float32))
-    args = (f32(segs[0]), f32(segs[1]),
-            jnp.asarray(mask[0]), jnp.asarray(mask[1]),
-            jnp.asarray(cams.fundamental(v, n).astype(np.float32)),
-            f32(cams.RtKinv[v]), f32(cams.RtKinv[n]),
-            f32(cams.C[v]), f32(cams.C[n]))
-    d_x, v_x = pairwise.match_pair_dense(*args)
-    d_p, v_p = pairwise_pallas.match_pair_dense_pallas(
-        *args, interpret=True)          # default 256 blocks -> gcd 128
-    v_x, v_p = np.asarray(v_x), np.asarray(v_p)
-    assert (v_x != v_p).mean() < 1e-3
-    both = v_x & v_p
-    assert both.sum() > 20
-    for k in range(4):
-        np.testing.assert_allclose(np.asarray(d_x[k])[both],
-                                   np.asarray(d_p[k])[both],
-                                   rtol=1e-4, atol=1e-5)
+
+@pytest.mark.parametrize("M,rows", [(256, 128), (1024, 32), (2048, 8),
+                                    (200, 128)])
+def test_twin_row_chunk_shrinks_with_m(M, rows):
+    """The XLA twin halves its row chunk until one [rows, M, M] plane fits
+    its budget (it is the on-card reference at the exact capacities)."""
+    assert scoring.twin_row_chunk(128, M) == rows
+    assert rows * M * M <= scoring._TWIN_PLANE_ELEMS
+
+
+def test_score_matches_best_runs_twin_on_cpu():
+    args = _fixture(8, 128)
+    np.testing.assert_array_equal(
+        np.asarray(scoring.score_matches_best(*args, row_chunk=8)),
+        np.asarray(scoring.score_matches(*args, row_chunk=8)))
+
+
+@pytest.mark.gpu
+def test_scoring_kernel_on_gpu():
+    """Compiled for the card (no interpret mode): agrees with the twin."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU (chip_smoke.py runs this at full width)")
+    args = _fixture(64, 512, N=10)
+    ref = np.asarray(scoring.score_matches(*args))
+    got = np.asarray(scoring_triton.score_matches_triton(*args))
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)

@@ -143,7 +143,7 @@ def test_cluster_stage_production_density():
     collinearity on — at a reduced view count (the default-suite
     promotion of the RUN_SCALE_1000 measurement; scripts/
     host_stage_scaling.py runs the same machinery at V=1000, measured
-    ~11 s affinity + ~6 s F-H + ~7 s fit against the ~55 s device stage).
+    ~11 s affinity + ~6 s F-H + ~7 s fit on a 4-core host).
     Pins that the native fused path recovers the planted 3D-line clusters."""
     import os
     import sys
